@@ -7,10 +7,10 @@ constant) and reports per-stage timings — pack, upload, compute+merge
 is not separable from outside), fetch — plus parallel efficiency.
 
 CPU-mesh numbers measure PROGRAM structure (dispatch counts, collective
-shapes), not TPU silicon: virtual devices share one host's cores, so
-compute "scaling" here is bounded by host parallelism. The communication-
-volume argument for real hardware is printed at the end; the ready-to-run
-real-slice script is examples/v5e16_scaling.py.
+shapes), not accelerator silicon: virtual devices share one host's cores,
+so compute "scaling" here is bounded by host parallelism. The
+communication-volume argument for real hardware is printed at the end;
+``chip_smoke.py --four-cards`` runs the mesh path on four GPUs.
 
 Run:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
@@ -28,8 +28,7 @@ if "xla_force_host_platform_device_count" not in os.environ.get("XLA_FLAGS", "")
 
 import jax
 
-if not os.environ.get("LIBSSA_SCALING_TPU"):
-    jax.config.update("jax_platforms", "cpu")
+jax.config.update("jax_platforms", "cpu")
 
 import numpy as np
 
@@ -118,7 +117,7 @@ def main():
         # grows with D on fixed silicon and eff% is a host artifact —
         # 'hostx' (work-normalized speedup, base*D/sweep) shows how much
         # of the D-fold work the host absorbed. eff% is the number that
-        # matters on real chips (examples/v5e16_scaling.py).
+        # matters on real cards.
         if base is None:
             base = r["sweep_s"]
         eff = 100.0 * base / r["sweep_s"]
@@ -128,15 +127,14 @@ def main():
               f"{hostx:>6.2f}")
 
     print("""
-Communication-volume argument for real ICI (v5e-16 etc.):
+Communication-volume argument for real interconnects (NVLink):
   per (query, step) pair the only cross-device traffic is the top-k merge
   all_gather of (k,) int32 scores+ids per device = D*k*8 bytes (e.g.
-  16 devices * k=10 * 8 B = 1.3 KB) + one psum scalar, against a compute
-  of B*m*n_pad DP cells per device per step (~10^8-10^9). At ICI's
-  ~100 GB/s the merge is sub-microsecond next to a multi-ms sweep:
+  4 devices * k=10 * 8 B = 320 B) + one psum scalar, against a compute
+  of B*m*n_pad DP cells per device per step (~10^8-10^9). At hundreds of
+  GB/s the merge is sub-microsecond next to a multi-ms sweep:
   weak-scaling efficiency on hardware is gated by per-step stragglers
   (padded-length variance across shards), held down by strided sharding.
-  Run examples/v5e16_scaling.py on a real slice for measured numbers.
 """)
 
 

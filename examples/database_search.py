@@ -1,6 +1,6 @@
 """End-to-end walkthrough: every capability of the engine in one script.
 
-Run on any backend (TPU if attached, else CPU):
+Run on any backend (a GPU if attached, else CPU):
 
     python examples/database_search.py
 

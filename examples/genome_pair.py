@@ -5,18 +5,15 @@ mitochondrial genomes, viral isolates) scored/aligned as ONE optimal
 Gotoh alignment — no database, no chunking. This walks the dedicated
 machinery:
 
-  * score-only at kernel rate (``ops/longpair_pallas``, skewed-band
-    Pallas kernel; plain-ACGT pairs select over 5 substitution planes
-    and run ~124 GCUPS/chip at 32k x 32k — alphabet-sized trees +
-    measured band heights, docs/PERF_NOTES.md r3),
-  * full traceback in O(m+n) memory (Myers-Miller with device row
-    passes, ``search/hirschberg.py`` + ``ops/mm_device.py``),
-  * queries beyond the VMEM plane cap chain tiles (``ops/tiled_pair``),
-    and a pair can span a whole device mesh (``parallel/ring.py``).
+  * score-only on the device (``ops/longpair``, the O(n)-state row-sweep
+    scan),
+  * full traceback in O(m+n) memory (Myers-Miller host passes with the
+    native leaf solver, ``search/hirschberg.py``),
+  * and a pair can span a whole device mesh (``parallel/ring.py``).
 
 Run on any backend:  python examples/genome_pair.py [length]
-(defaults to 16384; CPU interpret mode is SLOW above ~2k — this demo
-is sized for the TPU.)
+(defaults to 16384; the CPU backend is slow at that size — this demo is
+sized for a GPU.)
 """
 import os
 import sys

@@ -1,6 +1,6 @@
 """Symbol translation: ASCII sequences -> internal integer codes.
 
-TPU-native counterpart of the reference's ``src/util/util_sequence.c``
+Counterpart of the reference's ``src/util/util_sequence.c``
 (SURVEY.md §2 "Symbol translation"; reference mount empty — behavior follows
 the documented capabilities: map ASCII to internal codes for the nucleotide /
 amino-acid alphabets, reverse-complement for REVERSE/BOTH strand search, and

@@ -258,21 +258,21 @@ class SSAContext:
         (``0``/negative = all devices): the DB shards across the mesh,
         per-shard top-k lists merge with an ``all_gather`` collective, and
         results are bit-identical to the single-device engine. The
-        reference's closest knob is ``set_thread_count``; this is the TPU
-        analogue that actually scales.
+        reference's closest knob is ``set_thread_count``; this is the
+        device-level analogue that actually scales.
         """
         self.device_count = None if n in (None, 1) else int(n)
         self._engine = None
 
     def set_thread_count(self, n: int):
-        """Reference parity no-op: TPU parallelism is device-level.
+        """Reference parity no-op: parallelism is device-level.
 
-        The pthread worker count has no TPU analogue — within-chip
-        parallelism is the kernel's lane dimension and multi-chip
+        The pthread worker count has no analogue here — within-device
+        parallelism is the kernel's lane dimension and multi-device
         parallelism is configured via ``libssa_tpu.parallel`` meshes. Kept
         so reference-style scripts run unchanged.
         """
-        log(OutputMode.INFO, f"set_thread_count({n}): no-op on TPU backend")
+        log(OutputMode.INFO, f"set_thread_count({n}): no-op (device-level parallelism)")
 
     def set_output_mode(self, mode: OutputMode):
         _logging.set_output_mode(mode)
@@ -374,14 +374,13 @@ class SSAContext:
         (ScoreMismatchError on disagreement) — the one block every
         alignment-producing path must share verbatim. Aligner-stage work
         is accounted in ``stats.aligner_*`` (wall seconds, DP rectangle
-        cells, device Myers-Miller round trips): on huge hits an
-        ALIGNMENT-mode search spends most of its wall time here, in
-        passes the search-stage counters never see (VERDICT r4 weak #2).
+        cells): on huge hits an ALIGNMENT-mode search spends most of its
+        wall time here, in passes the search-stage counters never see.
         """
         t0 = time.perf_counter()
         tb = aligner.align_pair(
             qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
-            local, self.params.first_residue_opens, stats=stats,
+            local, self.params.first_residue_opens,
         )
         if stats is not None:
             stats.aligner_seconds += time.perf_counter() - t0
@@ -559,10 +558,9 @@ class SSAContext:
         The 1-vs-1 entry point (benchmark config #1): exact score +
         traceback using the configured matrix and gap penalties.
         ``mode=ComputeMode.SCORE`` skips the traceback and runs the
-        skewed-band Pallas kernel (ops/longpair — ~80 GCUPS/chip on a
-        16k x 16k protein pair, 124 on a 32k x 32k ACGT pair, any pair
-        size via tiled chaining) instead of the O(m+n)-memory traceback
-        fill; for genome-scale pairs this is the path to use.
+        O(n)-state row-sweep scorer on the device (``ops/longpair``)
+        instead of the O(m+n)-memory traceback; for genome-scale pairs
+        this is the path to use.
         """
         if self.matrix is None:
             raise RuntimeError("init_score_matrix() must be called first")
@@ -601,7 +599,7 @@ class SSAContext:
         for label, qc in q_seqs:
             tb = aligner.align_pair(
                 qc, sc, self.matrix.scores, self.gap_open, self.gap_extend,
-                local, self.params.first_residue_opens, stats=stats,
+                local, self.params.first_residue_opens,
             )
             stats.aligner_cells += len(qc) * len(sc)
             if best is None or tb.score > best[1].score:

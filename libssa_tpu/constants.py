@@ -1,4 +1,4 @@
-"""Public enums and constants for the TPU-native sequence-alignment engine.
+"""Public enums and constants for the sequence-alignment engine.
 
 Mirrors the configuration surface of the reference library (libssa's
 ``libssa.h`` — see SURVEY.md Appendix B; the reference mount was empty at
@@ -34,25 +34,23 @@ class BitWidth(enum.IntEnum):
     """Starting rung of the adaptive-precision ladder.
 
     The reference exposes 8/16/64-bit kernel entry points and automatically
-    rescores overflowed subjects at the next width (SURVEY.md §2 P4). On TPU
-    the fundamental VPU word is 32 bits, so our kernels compute exact int32
-    scores and *emulate* the narrow-width overflow semantics by flagging any
+    rescores overflowed subjects at the next width (SURVEY.md §2 P4). Here
+    the kernels compute exact 32-bit scores and *emulate* the narrow-width
+    overflow semantics by flagging any
     subject whose score (or intermediate score range) exceeds the width's
     representable limit; flagged subjects are re-scored at the next rung,
     preserving the reference pipeline's observable behavior (final scores are
     bit-identical either way). EXACT skips the ladder entirely — one exact
-    pass (the fastest choice on TPU, and the default). BIT64 runs the TRUE
-    64-bit device lane (r4): the whole sweep in s64 arithmetic — the slow
-    correctness lane, like the reference's scalar 64-bit path (its first
-    TPU compile takes minutes; see docs/PERF_NOTES.md "int64 lane").
-    Every escape ladder terminates in that int64 rung, so even scores
-    beyond int32 come back exact.
+    pass (the default). BIT64 runs the TRUE 64-bit device lane: the whole
+    sweep in s64 arithmetic — the slow correctness lane, like the
+    reference's scalar 64-bit path. Every escape ladder terminates in that
+    int64 rung, so even scores beyond int32 come back exact.
     """
 
     BIT8 = 8
     BIT16 = 16
     BIT64 = 64
-    EXACT = 32  # TPU-native: single exact pass, no ladder.
+    EXACT = 32  # single exact pass, no ladder
 
 
 # Score limits for ladder emulation. A width-w saturating kernel in the
@@ -87,8 +85,8 @@ class OutputMode(enum.IntEnum):
     INFO = 2
 
 
-# Alphabet sizes, padded for the TPU kernels (profile matmul uses a
-# lane-friendly padded alphabet dimension).
+# Alphabet sizes, padded for the kernels (a power-of-two padded alphabet
+# dimension for the profile gather and the one-hot dot).
 AA_ALPHABET = "ARNDCQEGHILKMFPSTWYVBZX*"  # NCBI substitution-matrix order
 NT_ALPHABET = "ACGTRYSWKMBDHVN"  # IUPAC; U maps to T
 PADDED_ALPHABET = 32  # kernel-side padded alphabet dimension

@@ -1,6 +1,6 @@
 """FASTA reading.
 
-TPU-native replacement for the reference's external FASTA library ("libsdb",
+Replacement for the reference's external FASTA library ("libsdb",
 wrapped by ``src/db_adapter.c`` — SURVEY.md §2 "External DB + adapter").
 The hot-path packer has a native C++ implementation (``io/native.py``); this
 module is the pure-Python reference parser and the API everything calls.

@@ -1,12 +1,12 @@
 """Substitution matrices: built-in BLOSUM/PAM, matrix-from-file, constant.
 
-TPU-native counterpart of the reference's ``src/matrices.c`` (SURVEY.md §2
+Counterpart of the reference's ``src/matrices.c`` (SURVEY.md §2
 "Substitution matrices"): built-in BLOSUM45/50/62/80/90 and PAM30/70/250,
 NCBI-format matrix file parsing, and constant match/mismatch scoring. The
 reference widens each matrix into 8/16/64-bit tables for its kernel
-precisions; on TPU every kernel computes in int32, so we keep one canonical
-int32 table plus an int8 copy used for the MXU profile matmul (int8 x int8 ->
-int32 is the TPU's native 8-bit path).
+precisions; here every kernel computes in 32 bits (or the int64 lane), so
+we keep one canonical int32 table plus an int8 copy for the scan's one-hot
+dot gather (int8 x int8 -> int32).
 
 Provenance note: the reference checkout was empty at survey time
 (SURVEY.md §0), so the table text below is reproduced from the standard NCBI
@@ -300,7 +300,7 @@ class ScoreMatrix:
     def padded(self, pad_value: int = -64) -> np.ndarray:
         """(PADDED_ALPHABET, PADDED_ALPHABET) int32 table for the kernels.
 
-        ``pad_value`` must be representable in int8 (the MXU profile path
+        ``pad_value`` must be representable in int8 (the one-hot dot path
         keeps an int8 copy) and negative enough that a run of pad symbols can
         never out-score a real residue pairing.
         """

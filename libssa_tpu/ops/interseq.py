@@ -1,16 +1,16 @@
-"""Inter-sequence batched SW/NW scoring — the database-search workhorse.
+"""Inter-sequence batched SW/NW scoring — the portable XLA sweep.
 
-This is the TPU-native redesign of the reference's SWIPE-style 8/16-bit SIMD
-kernels (``src/algo/8|16/search_*`` per SURVEY.md §2): score a batch of B
-subjects against one query simultaneously, one subject per vector lane.
+The redesign of the reference's SWIPE-style 8/16-bit SIMD kernels
+(``src/algo/8|16/search_*`` per SURVEY.md §2): score a batch of B subjects
+against one query simultaneously, one subject per vector lane. On a GPU
+the database sweep runs the Hopper kernel (``interseq_triton``); this XLA
+``lax.scan`` is the reference route everywhere else, the int64 lane, and
+the exactness anchor the kernel is tested against.
 
-Why this shape, and why it is NOT a translation of the CPU kernel
------------------------------------------------------------------
-The CPU reference walks the query sequentially (i = 1..m) inside each
-subject step, doing a 16/32-lane SIMD op per cell row — fine when the vector
-unit is 128 bits wide, hopeless on a TPU whose VPU wants (8, 128) tiles and
-whose compiler wants one big fused loop body. Instead we vectorize the
-ENTIRE DP column over the query dimension:
+Shape of the scan
+-----------------
+Each step processes one subject column, vectorized over the ENTIRE query
+dimension:
 
 * The E recurrence is horizontal (depends only on the previous column) —
   trivially elementwise over i.
@@ -29,21 +29,19 @@ ENTIRE DP column over the query dimension:
   extension path; see tests/test_interseq.py for the bit-exactness lock
   against the scalar oracle.)
 
-The per-step score column sub(q[i], s_t[b]) is ``profile @ onehot(s_t)`` —
-an (m, 32) x (32, B) int matmul on the MXU, replacing the reference's SSE
-shuffle dprofile gather; the MXU is otherwise idle in this workload so the
-gather is effectively free.
+The per-step score column sub(q[i], s_t[b]) is either ``jnp.take`` from the
+profile (the default) or ``profile @ onehot(s_t)``, an (m, 32) x (32, B)
+one-hot dot (``use_matmul``).
 
 Precision ladder
 ----------------
-All arithmetic is exact int32 (the TPU VPU's native word). The reference's
-8/16-bit saturating kernels exist to pack more lanes per SIMD register; a
-TPU lane is 32-bit either way, so narrow arithmetic buys nothing on the VPU
-— instead the ladder semantics (SURVEY.md §2 P4) are preserved by
-*flagging* any lane whose running score range leaves the width's
-representable window ([0, 255] biased-unsigned for 8-bit, +/-32767 for
-16-bit) and letting the manager re-score flagged subjects at the next rung,
-which reproduces the reference pipeline's observable behavior with
+All arithmetic is exact (int32, f32 inside its 2**24 integer window, or
+int64). The reference's 8/16-bit saturating kernels exist to pack more
+lanes per SIMD register; here the ladder semantics (SURVEY.md §2 P4) are
+preserved by *flagging* any lane whose running score range leaves the
+width's representable window ([0, 255] biased-unsigned for 8-bit, +/-32767
+for 16-bit) and letting the manager re-score flagged subjects at the next
+rung, which reproduces the reference pipeline's observable behavior with
 bit-identical final scores.
 
 Gap convention: Q = open + extend is charged for a gap's first residue, R =
@@ -73,16 +71,25 @@ def x64_scope(enabled: bool):
     return jax.enable_x64(True) if enabled else contextlib.nullcontext()
 
 
-def _profile_column(profile_full, profile_mxu, s_t, use_matmul: bool, dtype):
-    """Scores sub(q[i], s_t[b]) as (m, B) in the DP dtype."""
+def _profile_column(profile_full, profile_dot, s_t, use_matmul: bool, dtype):
+    """Scores sub(q[i], s_t[b]) as (m, B) in the DP dtype.
+
+    The one-hot dot is exact: each output sums ONE product entry x 1. On
+    the f32 path ``precision=HIGHEST`` keeps a GPU from running it in TF32
+    (11 significand bits: exact only for integer entries up to 2,048 in
+    magnitude); the int32 path feeds an s8 x s8 -> s32 dot, which the
+    engine gates on |entry| <= 127. tests/test_gpu.py locks both on the
+    card.
+    """
     if use_matmul:
         onehot = (
             s_t[None, :] == jax.lax.broadcasted_iota(jnp.int32, (PADDED_ALPHABET, 1), 0)
-        ).astype(profile_mxu.dtype)
+        ).astype(profile_dot.dtype)
         return jax.lax.dot_general(
-            profile_mxu,
+            profile_dot,
             onehot,
             dimension_numbers=(((1,), (0,)), ((), ())),
+            precision=jax.lax.Precision.HIGHEST,
             preferred_element_type=dtype,
         )
     return jnp.take(profile_full, s_t, axis=1)
@@ -99,7 +106,7 @@ def interseq_scores(
     gap_q: jax.Array,  # scalar int32: open+extend
     gap_r: jax.Array,  # scalar int32: extend
     local: bool = True,
-    use_matmul: bool = True,
+    use_matmul: bool = False,
     track_range: bool = False,
     dtype=jnp.int32,
     m_real: int | None = None,
@@ -114,14 +121,11 @@ def interseq_scores(
     ``dtype``: the DP arithmetic type. int32 is the obvious exact choice;
     float32 is ALSO exact here — every DP value is an integer and f32
     represents integers exactly up to 2**24, far above any realistic
-    alignment score (the manager guards the window and falls back to the
-    int64 oracle otherwise). f32 is markedly faster to compile and run on
-    TPU, whose VPU/MXU are float-first. jnp.int64 runs the TRUE 64-bit
-    device lane (SURVEY.md §2 P4 [DRIVER]: the reference keeps a 64-bit
-    rung even where 32 bits suffice): XLA legalizes s64 on TPU via
-    32-bit-pair emulation (probe: experiments/r4_int64_probe.py). The
-    caller must trace/dispatch under ``jax.enable_x64(True)``; the
-    one-hot MXU gather is forced off (s64 never rides the MXU) and the
+    alignment score (the manager guards the window and escapes to the
+    int64 lane otherwise). jnp.int64 runs the TRUE 64-bit device lane
+    (SURVEY.md §2 P4 [DRIVER]: the reference keeps a 64-bit rung even
+    where 32 bits suffice). The caller must trace/dispatch under
+    ``jax.enable_x64(True)``; the one-hot dot is forced off and the
     returned scores stay int64.
 
     ``m_real``: true query length when the caller padded the profile with
@@ -145,7 +149,7 @@ def interseq_scores(
     # Codes fit int8; callers ship them narrow to cut transfer bytes 4x.
     subjects_T = subjects_T.astype(jnp.int32)
     if dtype == jnp.int64:
-        use_matmul = False  # s64 never rides the MXU; take-gather instead
+        use_matmul = False  # s64 takes the take-gather
     Q = gap_q.astype(dtype)
     R = gap_r.astype(dtype)
     profile_i32 = profile.astype(dtype)
@@ -272,16 +276,16 @@ def batch_scores_oracle_layout(
     gap_q: int,
     gap_r: int,
     local: bool,
-    use_matmul: bool = True,
+    use_matmul: bool = False,
     track_range: bool = False,
     dtype=jnp.int32,
     m_real: int | None = None,
 ):
     """Convenience host wrapper: (B, n_pad) chunk -> per-lane scores."""
     # Same |score|<=127 gate as SearchEngine._matmul_ok: the int32 path
-    # feeds the MXU gather an int8 profile, which would silently wrap
-    # large-entry matrices (review finding; f32 is exact to 2**24 and
-    # int64 forces the take-gather, so only int32 needs the gate).
+    # feeds the one-hot dot an int8 profile, which would silently wrap
+    # large-entry matrices (f32 is exact to 2**24 and int64 forces the
+    # take-gather, so only int32 needs the gate).
     if use_matmul and dtype == jnp.int32:
         use_matmul = int(np.abs(np.asarray(profile)).max()) <= 127
     with x64_scope(dtype == jnp.int64):
@@ -310,45 +314,32 @@ def pair_scores_batch(
     m_real: int | None = None,
     kernel: str = "auto",
 ):
-    """Batched 1-vs-1 scoring, routed through the INTER-SEQUENCE kernel.
+    """Batched 1-vs-1 scoring, routed through the INTER-SEQUENCE sweep.
 
-    The round-1 vmapped wavefront ran BASELINE config 1 at ~1 GCUPS: each
-    anti-diagonal step needs S[i,p] = sub(q[i], s_p[d-i]) — a symbol that
-    varies per (row, lane), which defeats the MXU one-hot profile gather
-    and degenerates into a 32-way masked reduce per step. But a batch of
-    pairs sharing one query IS the inter-sequence shape (pairs across
-    lanes, columns sequential): no diagonal skew, one (m,32)x(32,B) MXU
-    gather per column, the measured 200+ GCUPS path (SURVEY.md §7: the
-    inter-sequence formulation "sidesteps" the wavefront dependency and
-    is the right primary design on TPU).
-
-    For what the anti-diagonal formulation was uniquely good at — O(m)
-    state for one enormous pair — use ``ops.longpair.longpair_score``
-    (the skewed-band kernel, ~80-124 GCUPS single-pair).
+    A batch of pairs sharing one query IS the inter-sequence shape (pairs
+    across lanes, columns sequential): no diagonal skew and one profile
+    lookup per lane per cell, unlike the anti-diagonal wavefront whose
+    substitution symbol varies per (row, lane). ``kernel`` picks the route
+    by ``search.kernels.route``. For one enormous pair use
+    ``ops.longpair.longpair_score``.
     """
+    from ..search import kernels
+
     m = profile.shape[0]
     mr = m_real if m_real is not None else m
     subjects_T = jnp.asarray(subjects).T  # (n, P)
-    use_pallas = kernel == "pallas"
-    if kernel == "auto":
-        from ..search.kernels import pallas_available
+    route = kernels.route(kernel)
+    if route != "scan":
+        from .interseq_triton import interseq_scores_triton
 
-        use_pallas = pallas_available()
-    if use_pallas:
-        from .interseq_pallas import interseq_scores_pallas
-
-        scores, _, _ = interseq_scores_pallas(
+        scores, _, _ = interseq_scores_triton(
             profile, subjects_T, lengths, int(gap_q), int(gap_r),
-            local=local, track_range=False, m_real=mr,
+            local=local, m_real=mr, interpret=route == "interpret",
         )
         return scores
-    # The scan path computes in exact int32 whose MXU gather feeds an
-    # int8 profile: gate on |score|<=127 exactly like the engine's
-    # _matmul_ok (review finding — large-entry matrices wrapped here).
-    mm_ok = int(np.abs(np.asarray(profile)).max()) <= 127
     scores, _, _ = interseq_scores(
         profile, subjects_T, lengths,
         jnp.int32(gap_q), jnp.int32(gap_r),
-        local=local, use_matmul=mm_ok, track_range=False, m_real=mr,
+        local=local, track_range=False, m_real=mr,
     )
     return scores

@@ -1,10 +1,9 @@
 """Single enormous-pair SW/NW scoring: row-sweep with lazy-E prefix scan.
 
-The last slow first-class path after round 2 (VERDICT r2 missing #3): one
-(query, subject) pair too large for the inter-sequence kernel's practical
-batch shapes. The round-1 anti-diagonal formulation (``wavefront.py``)
-computes ~1 GCUPS on TPU because the per-diagonal substitution symbol
-varies per lane and defeats the MXU one-hot gather (docs/PERF_NOTES.md).
+One (query, subject) pair too large for the inter-sequence kernel's batch
+shapes. The anti-diagonal formulation (``wavefront.py``) needs a
+per-(row, lane) substitution gather on every diagonal; this module avoids
+it.
 
 This module reformulates the sweep ROW-major, subject positions across
 the vector lanes:
@@ -13,9 +12,9 @@ the vector lanes:
     the previous row (``F = max(F - R, H_prev - Q)``), and the diagonal
     is a single shift of the previous H row.
   * The horizontal E recurrence — the within-row dependency — is closed
-    with the SAME lazy prefix-max identity the batched kernels use for F
-    (ops/interseq_pallas.py), computed over the full row with a
-    log2(n)-level doubling scan:
+    with the SAME lazy prefix-max identity the batched scan uses for F
+    (ops/interseq.py), computed over the full row with a log2(n)-level
+    doubling scan:
 
         D[j]   = max_{k<=j} (Hnof[k] - (j-k) R)
         E[j+1] = D[j] - Q
@@ -28,10 +27,9 @@ the vector lanes:
 
 State is O(n) per pair (rows stream), so memory is flat in the query
 length like the reference's intra-sequence path (SURVEY.md §2 P2, §5
-"long-context"). ``longpair_pallas.py`` holds the VMEM-resident TPU
-kernel of the same recurrence; this XLA ``lax.scan`` version is the
-correctness anchor, the CPU fallback, and the exact-int32 escape for
-scores beyond the f32 window.
+"long-context"). This XLA ``lax.scan`` is the single-pair score route on
+every backend, in f32 inside the exact 2**24 window and in int32 beyond
+it.
 """
 from __future__ import annotations
 
@@ -189,14 +187,11 @@ def longpair_score(
     gap_extend: int,
     local: bool = True,
     first_residue_opens: bool = True,
-    kernel: str = "auto",
 ) -> int:
     """Host convenience: exact SW/NW score of one (possibly huge) pair.
 
-    Routing: the Pallas VMEM kernel on TPU (``longpair_pallas``), the XLA
-    scan otherwise; scores that could leave the f32 integer window run
-    the scan in int32 (exact, slower — astronomically rare for real
-    sequences).
+    Runs the row-sweep scan; scores that could leave the f32 integer
+    window run it in int32 (exact at any realistic magnitude).
     """
     from ..oracle import gap_qr
 
@@ -208,46 +203,7 @@ def longpair_score(
         lm = max(m, n)
         return 0 if lm == 0 else -(Q + (lm - 1) * R)
 
-    use_pallas = kernel == "pallas"
-    if kernel == "auto":
-        from ..search.kernels import pallas_available
-
-        use_pallas = pallas_available()
     exact_f32 = score_bound(m, n, matrix_padded, Q, R) < 2**24
-    # The banded/tiled kernels carry the query's substitution planes in
-    # bf16 (8 mantissa bits: integers exact only to +/-256); a matrix
-    # with larger entries must take the scan path.
-    use_pallas = use_pallas and real_max_abs(matrix_padded)[0] <= 256
-
-    if use_pallas and exact_f32:
-        from .longpair_pallas import (
-            M_PAD_MAX,
-            alphabet_planes,
-            longpair_score_pallas,
-        )
-
-        # Smaller alphabets need fewer VMEM planes, so the direct banded
-        # kernel (faster than tiling) covers proportionally taller
-        # queries — mirrors longpair_score_pallas's own bound.
-        K = alphabet_planes(np.asarray(q_codes), np.asarray(s_codes))
-        if m > M_PAD_MAX * (PADDED_ALPHABET // K):
-            # Query too tall for one kernel's VMEM planes: chained
-            # banded tiles (same kernel body, one dispatch).
-            from .tiled_pair import tiled_pair_score
-
-            return int(
-                tiled_pair_score(
-                    np.asarray(q_codes), np.asarray(s_codes),
-                    matrix_padded, Q, R, local=local,
-                )
-            )
-        return int(
-            longpair_score_pallas(
-                np.asarray(q_codes), np.asarray(s_codes), matrix_padded,
-                Q, R, local=local,
-            )
-        )
-
     PAD = PADDED_ALPHABET - 1
     n_pad = -(-n // 512) * 512
     m_pad = -(-m // 256) * 256

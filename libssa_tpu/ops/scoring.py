@@ -4,9 +4,9 @@ Counterpart of the reference's per-search "query profile" (SWIPE dprofile
 fill, SURVEY.md §3.2): for a fixed query q, precompute
 ``profile[i, c] = sub(q[i], c)`` for every alphabet symbol c. At search time
 a subject-symbol column of scores is one profile lookup per lane — which the
-TPU kernels express either as a gather or as ``profile @ onehot(s_t)`` on
-the MXU (the matmul formulation is the idiomatic TPU replacement for the
-reference's SSE shuffle-based dprofile gather).
+kernels express as a per-lane gather (the Hopper kernel and the scan's
+default) or as a ``profile @ onehot(s_t)`` dot, in place of the reference's
+SSE shuffle-based dprofile gather.
 """
 from __future__ import annotations
 

@@ -6,7 +6,8 @@ descending then seq_id ascending — the tie-break must be fixed so hit lists
 are reproducible across chunk sizes, batch orders, devices, and hosts
 (SURVEY.md §7 "identical tie-breaking in top-k ordering").
 
-On device we avoid heaps entirely (branchy, serial — wrong shape for TPU):
+On device we avoid heaps entirely (branchy, serial — wrong shape for a
+vector machine):
 the sharded sweep sorts on a composite key in-program (parallel/sharded.py)
 and the manager reduces accumulated scores on the host here. k is small
 (10s), chunks are large (1000s), so sort cost is negligible next to the DP.

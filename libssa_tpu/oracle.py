@@ -2,8 +2,8 @@
 
 This is the engine's independent correctness anchor (SURVEY.md §4: the
 reference tests its SIMD kernels against its 64-bit scalar path; we replicate
-that oracle pattern with a pure-NumPy implementation that every TPU kernel is
-tested against bit-exactly). It also serves as the terminal "64-bit" rung of
+that oracle pattern with a pure-NumPy implementation that every device kernel
+is tested against bit-exactly). It also serves as the terminal "64-bit" rung of
 the adaptive-precision ladder semantics: int64 cannot overflow for any
 realistic sequence.
 

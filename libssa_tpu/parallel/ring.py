@@ -3,9 +3,9 @@
 SURVEY.md §5 "long-context": when ONE alignment outgrows a chip, the
 subject is sharded column-wise across a device mesh and the Gotoh DP
 boundary (an H/E column plus the running F row) flows to the right
-neighbor over ICI — the same neighbor-exchange dependency pattern as ring
-attention, which is why it is the honest TPU mapping of "sequence
-parallelism" for this workload (SURVEY.md §2 P6).
+neighbor (``ppermute``; NVLink between the cards of one host) — the same
+neighbor-exchange dependency pattern as ring attention, the mapping of
+"sequence parallelism" for this workload (SURVEY.md §2 P6).
 
 Pipelining: the query is split into ``R`` row blocks. Device ``d``
 processes row block ``i`` at phase ``p = i + d`` — a wavefront over the
@@ -30,9 +30,15 @@ import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..constants import PADDED_ALPHABET
-from ..ops.ring_block_pallas import nw_boundary
 
 NEG = jnp.float32(-(2.0**24))
+
+
+def nw_boundary(i, Q, R):
+    """NW boundary value H[i][0] == H[0][i]: 0 at i <= 0, else
+    -(Q + (i-1) R)."""
+    fi = jnp.asarray(i).astype(jnp.float32)
+    return jnp.where(fi <= 0, 0.0, -(Q + (fi - 1.0) * R))
 
 
 def _tile_sweep(
@@ -233,186 +239,6 @@ def ring_pair_score(
     return out.astype(jnp.int32)
 
 
-SENTINEL = -(2**30)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "gap_q", "gap_r", "mesh", "RB", "local", "m_real", "n_real",
-        "interpret",
-    ),
-)
-def ring_pair_score_banded(
-    pq_blocks: jax.Array,  # (Rblocks, K, CH, B) bf16 planes, replicated
-    subject: jax.Array,  # (D*W,) int32, PAD-padded, sharded over 'd'
-    *,
-    gap_q: int,
-    gap_r: int,
-    mesh: Mesh,
-    RB: int,
-    local: bool = True,
-    m_real: int | None = None,
-    n_real: int | None = None,
-    interpret: bool = False,
-):
-    """Round 3: the ring's per-device tile sweep IS the banded Pallas
-    kernel (ops/ring_block_pallas.py — the same measured body as the
-    single-chip longpair kernel), per VERDICT r2 item 2. Orchestration
-    is unchanged from :func:`ring_pair_score`: subject column-sharded,
-    query in RB-row blocks, phase p = rb + d staircase, right-edge H/E
-    columns shipped to the next device by ``ppermute``. The corner each
-    tile needs (H[i0-1][c0-1]) is the PREVIOUS phase's inbox bottom-right
-    element ``rH[7, B-1]``, so no extra traffic.
-    """
-    from ..ops.ring_block_pallas import banded_tile, tile_shapes
-
-    Rblocks = pq_blocks.shape[0]
-    K = pq_blocks.shape[1]  # select-tree plane count (alphabet_planes)
-    CH = pq_blocks.shape[2]  # band height (band_height)
-    B = RB // CH
-    D = mesh.devices.size
-    mr = m_real if m_real is not None else Rblocks * RB
-    nr = n_real if n_real is not None else subject.shape[0]
-    Qf = jnp.asarray(gap_q, jnp.float32)
-    Rf = jnp.asarray(gap_r, jnp.float32)
-    cap_rb = (mr - 1) // RB
-    cap_row = (mr - 1) % RB
-
-    def device_fn(pq, s_shard):
-        d = jax.lax.axis_index("d")
-        W = s_shard.shape[0]
-        T, _B = tile_shapes(RB, W, interpret, CH)
-        tile = banded_tile(
-            RB, W, int(gap_q), int(gap_r), local, interpret,
-            n_planes=K, ch=CH,
-        )
-        PAD = K - 1
-        s_t = jnp.concatenate(
-            [s_shard.astype(jnp.int32), jnp.full((T - W,), PAD, jnp.int32)]
-        )
-        cols = d * W + 1 + jnp.arange(W, dtype=jnp.int32)  # global j of tile
-
-        # Row-0 formula top stream (corner-first) and F row.
-        if local:
-            topH_row0 = jnp.zeros((W,), jnp.float32)
-            corner_row0 = jnp.float32(0.0)
-        else:
-            topH_row0 = -(Qf + (cols.astype(jnp.float32) - 1.0) * Rf)
-            cw = (d * W).astype(jnp.float32)
-            corner_row0 = jnp.where(d * W == 0, 0.0, -(Qf + (cw - 1.0) * Rf))
-        negT = jnp.full((T - W,), NEG, jnp.float32)
-        topF_any = jnp.concatenate(
-            [jnp.full((W,), NEG, jnp.float32), negT]
-        )  # row 0 F boundary is -inf; deeper rows use the state below
-
-        inbox_H = jnp.zeros((CH, B), jnp.float32)
-        inbox_E = jnp.full((CH, B), NEG, jnp.float32)
-        corner_state = jnp.float32(0.0)
-        botH_prev = jnp.zeros((W,), jnp.float32)
-        botF_prev = jnp.full((W,), NEG, jnp.float32)
-        best = jnp.float32(0.0)
-        nw_score = NEG
-
-        perm = [(i, i + 1) for i in range(D - 1)]
-
-        for p in range(Rblocks + D - 1):
-            rb = jnp.clip(p - d, 0, Rblocks - 1)
-            active = (p - d >= 0) & (p - d <= Rblocks - 1)
-            i0 = rb * RB + 1
-            pq_r = jax.lax.dynamic_slice(
-                pq, (rb, 0, 0, 0), (1, K, CH, B)
-            )[0]
-
-            # Left boundary: device 0 uses the global column formulas.
-            rows = i0 + jnp.arange(RB, dtype=jnp.int32)
-            if local:
-                lH0 = jnp.zeros((B, CH), jnp.float32)
-                lD0 = jnp.zeros((1, B), jnp.float32)
-            else:
-                lH0 = nw_boundary(rows, Qf, Rf).reshape(B, CH)
-                lD0 = nw_boundary(
-                    rows.reshape(B, CH)[:, 0] - 1, Qf, Rf
-                ).reshape(1, B)
-            is0 = d == 0
-            lH = jnp.where(is0, lH0.T, inbox_H)
-            lE = jnp.where(
-                is0, jnp.full((CH, B), NEG, jnp.float32), inbox_E
-            )
-            lD = jnp.where(
-                is0,
-                lD0,
-                jnp.concatenate(
-                    [jnp.zeros((1, 1), jnp.float32),
-                     inbox_H[CH - 1 : CH, :-1]],
-                    axis=1,
-                ),
-            )
-            # Corner H[i0-1][c0-1]: row-0 formula for rb==0, column
-            # formula for d==0, else last phase's inbox bottom-right.
-            if local:
-                corner = jnp.float32(0.0)
-            else:
-                corner = jnp.where(
-                    rb == 0,
-                    corner_row0,
-                    jnp.where(
-                        is0,
-                        nw_boundary(i0 - 1, Qf, Rf),
-                        corner_state,
-                    ),
-                )
-            # Top streams: row-0 formulas for rb==0, else own bottom.
-            first_rb = rb == 0
-            topH_vals = jnp.where(first_rb, topH_row0, botH_prev)
-            topH_stream = jnp.concatenate(
-                [jnp.reshape(corner, (1,)), topH_vals, negT]
-            )
-            topF_stream = jnp.where(
-                first_rb,
-                topF_any,
-                jnp.concatenate([botF_prev, negT]),
-            )
-
-            in_tile = (rb == cap_rb) & (
-                (nr - 1 >= d * W) & (nr - 1 < (d + 1) * W)
-            )
-            cap_col = jnp.where(in_tile, (nr - 1) - d * W, SENTINEL)
-            acc, cap, rH, rE, bHf, bFf = tile(
-                s_t, topH_stream, topF_stream,
-                pq_r, lH, lE, lD,
-                jnp.asarray(cap_row, jnp.int32), cap_col,
-            )
-            if local:
-                best = jnp.where(
-                    active, jnp.maximum(best, jnp.max(acc)), best
-                )
-            else:
-                cap_val = jnp.take(cap[0], cap_row // CH)
-                nw_score = jnp.where(active & in_tile, cap_val, nw_score)
-            botH_prev = jnp.where(active, bHf, botH_prev)
-            botF_prev = jnp.where(active, bFf, botF_prev)
-            # Next phase's corner is this phase's inbox bottom-right.
-            corner_state = inbox_H[CH - 1, B - 1]
-            inbox_H = jax.lax.ppermute(rH, "d", perm)
-            inbox_E = jax.lax.ppermute(rE, "d", perm)
-
-        if local:
-            out = jax.lax.pmax(best, "d")
-        else:
-            out = jax.lax.pmax(nw_score, "d")
-        return out
-
-    out = jax.shard_map(
-        device_fn,
-        mesh=mesh,
-        in_specs=(P(), P("d")),
-        out_specs=P(),
-        check_vma=False,
-    )(pq_blocks, subject)
-    return out.astype(jnp.int32)
-
-
 def ring_score(
     q_codes: np.ndarray,
     s_codes: np.ndarray,
@@ -422,15 +248,11 @@ def ring_score(
     local: bool = True,
     mesh: Mesh | None = None,
     RB: int = 64,
-    kernel: str = "auto",
     first_residue_opens: bool = True,
-    interpret: bool = False,
 ):
     """Host convenience: pad, shard, and score one pair over the mesh.
 
-    ``kernel``: 'banded' runs the per-device Pallas tile kernel
-    (ops/ring_block_pallas.py — the TPU path), 'scan' the lax.scan tile
-    sweep (CPU fallback / cross-check), 'auto' picks banded on TPU.
+    Each device sweeps its tiles with the ``lax.scan`` tile sweep.
     ``first_residue_opens``: the Gotoh gap convention, same meaning as
     ``init_gap_penalties`` (the ring must agree with every other scorer
     for the identical pair and penalties).
@@ -449,12 +271,10 @@ def ring_score(
         lm = max(m, n)
         return 0 if lm == 0 else -(Q + (lm - 1) * R_)
 
-    # BOTH ring tile paths (banded Pallas and scan) compute in f32,
-    # exact only within +/-2**24 — and the NW boundary term (n * R)
-    # alone can leave it on the >8M-column pairs the ring exists for
-    # (review finding: ring_score had no window guard, unlike
-    # longpair_score / tiled_pair). Escape to the single-device exact
-    # path, which has its own int32 fallback at any magnitude.
+    # The tile sweep computes in f32, exact only within +/-2**24 — and
+    # the NW boundary term (n * R) alone can leave it on the >8M-column
+    # pairs the ring exists for. Escape to the single-device exact path,
+    # which has its own int32 fallback at any magnitude.
     from ..ops.longpair import score_bound
 
     if score_bound(m, n, matrix_padded, Q, R_) >= 2**24:
@@ -473,49 +293,7 @@ def ring_score(
             local=local, first_residue_opens=first_residue_opens,
         )
 
-    if kernel == "auto":
-        from ..search.kernels import pallas_available
-
-        kernel = "banded" if pallas_available() else "scan"
-    if kernel == "banded":
-        from ..ops.longpair import real_max_abs
-
-        if real_max_abs(matrix_padded)[0] > 256:
-            kernel = "scan"  # bf16 planes: integers exact only to 256
-
     from .sharded import put_global
-
-    if kernel == "banded":
-        from ..ops.longpair_pallas import alphabet_planes, band_height
-        from ..ops.mm_device import _pq_blocks
-
-        K = alphabet_planes(np.asarray(q_codes), np.asarray(s_codes))
-        if not interpret:
-            # Compiled tiles need RB/CH % 32 == 0; RB is a performance
-            # knob, not a semantic one, so round up silently. W buckets
-            # to 256 so random subject lengths share compilations.
-            RB = max(256, -(-RB // 256) * 256)
-        # Band height: same measured lookup as the single-chip kernels;
-        # small row blocks stay at 8 (mm_device._plan's gate).
-        CH = 8 if (interpret or RB < 8192) else band_height(K, RB)
-        B = RB // CH
-        Rblocks = -(-m // RB)
-        pq = _pq_blocks(q_codes, matrix_padded, Rblocks, RB, B, K, CH)
-        W = -(-n // D)
-        if not interpret:
-            W = -(-W // 256) * 256
-        s_pad = np.full((W * D,), K - 1, np.int64)
-        s_pad[:n] = np.asarray(s_codes, np.int64)
-        subj = put_global(s_pad, mesh, P("d"), np.int32)
-        pq_j = put_global(pq, mesh, P(), np.float32)
-        return int(
-            ring_pair_score_banded(
-                jnp.asarray(pq_j).astype(jnp.bfloat16), subj,
-                gap_q=int(Q), gap_r=int(R_),
-                mesh=mesh, RB=RB, local=local, m_real=m, n_real=n,
-                interpret=interpret,
-            )
-        )
 
     prof = make_profile(np.asarray(q_codes), matrix_padded)
     pad_m = (-m) % RB

@@ -5,8 +5,8 @@ the score search picks the top-k hits, each hit is re-aligned with a full
 Gotoh DP + traceback to produce the alignment path, coordinates, and display
 strings. Like the reference, this stage is not vectorized across subjects —
 k is tiny — but unlike the reference's scalar C loop the matrix fill here is
-row-vectorized NumPy using the same exact lazy-E identity the TPU kernels
-use for F (symmetric argument, see ops/interseq.py): ~100x faster than a
+row-vectorized NumPy using the same exact lazy-E identity the scan kernel
+uses for F (symmetric argument, see ops/interseq.py): ~100x faster than a
 per-cell Python loop while remaining an implementation INDEPENDENT of both
 the scalar oracle (plain per-cell loops) and the device kernels — the three
 are cross-checked in tests/test_aligner.py.
@@ -79,15 +79,12 @@ def align_pair(
     gap_extend: int,
     local: bool = True,
     first_residue_opens: bool = True,
-    stats=None,
 ) -> Traceback:
     """One optimal alignment of a pair.
 
     Small pairs: full-matrix fill + traceback. Long pairs (> 16M cells):
     O(m+n)-memory Myers-Miller divide and conquer (search/hirschberg.py)
-    — same optimal scores, locked against each other in tests. ``stats``
-    (optional ``SearchStats``) receives the long-pair path's device
-    round-trip accounting (``aligner_dispatches``).
+    — same optimal scores, locked against each other in tests.
     """
     q = np.asarray(q)
     s = np.asarray(s)
@@ -96,8 +93,7 @@ def align_pair(
         from .hirschberg import align_pair_linear
 
         return align_pair_linear(
-            q, s, sub, gap_open, gap_extend, local, first_residue_opens,
-            stats=stats,
+            q, s, sub, gap_open, gap_extend, local, first_residue_opens
         )
     Q, R = gap_qr(gap_open, gap_extend, first_residue_opens)
     if m == 0 or n == 0:

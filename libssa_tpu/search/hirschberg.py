@@ -29,50 +29,15 @@ from ..oracle import NEG, Traceback, gap_qr
 
 INF = int(2**60)
 
-# Round 3: subproblems with at least this many cells run their row pass
-# on the banded tile kernel (ops/mm_device.py) — ~50 GCUPS vs ~0.15 for
-# the NumPy pass; below it the dispatch round trip dominates. Tests
-# lower it (and set DEVICE_INTERPRET) to force the device path on CPU.
-# Round 4: the threshold gates (a) building the pair's device-resident
-# planes at all and (b) each recursion LEVEL (one dispatch per level;
-# a sub-threshold level's host passes beat a ~100 ms round trip).
-DEVICE_MIN_CELLS = 16 * 1024 * 1024
-DEVICE_INTERPRET = False
-
 # Subproblems at or below this many cells stop recursing and solve
 # directly with an O(m*n) direction-matrix fill (_ops_small). The deep
 # subtree below this size is tens of thousands of tiny row passes whose
 # per-call overhead dominates a huge-pair traceback: the r3 attribution
-# (experiments/r3_mm_profile.py) measured 53,210 _mm_pass calls = 19 s
+# (a host profile) measured 53,210 _mm_pass calls = 19 s
 # for only 0.22 Gcells on a 30k x 30k NW pair. Direction matrices at
 # this bound cost ~3 MB — trivial next to the O(m+n) guarantee's
 # purpose (the FULL matrix for 30k x 30k would be ~2.7 GB).
 LEAF_CELLS = 1 << 20
-
-
-def _pad32(sub):
-    out = np.full((32, 32), -64, np.int64)
-    A = sub.shape[0]
-    out[:A, :A] = sub
-    return out
-
-
-def _device_ok(m, n, sub, Q, R, min_cells=None):
-    if min_cells is None:
-        min_cells = DEVICE_MIN_CELLS
-    if m * n < min_cells or m < 2 or n < 2:
-        return False
-    from ..ops.longpair import real_max_abs, score_bound
-
-    if score_bound(m, n, sub, Q, R) >= 2**24:
-        return False  # outside the f32 window: NumPy int64 stays exact
-    if real_max_abs(sub)[0] > 256:
-        return False  # bf16 query planes: integers exact only to 256
-    if DEVICE_INTERPRET:
-        return True
-    from .kernels import pallas_available
-
-    return pallas_available()
 
 
 def _mm_pass(q, s, cost, g, h, tb):
@@ -114,23 +79,6 @@ def _mm_pass(q, s, cost, g, h, tb):
 
 def _rev(x):
     return np.ascontiguousarray(x[::-1])
-
-
-def _make_device_pair(q, s, sub, Q, R):
-    """Device-resident planes for the whole pair, or None.
-
-    Built once per ``align_pair_linear`` call when the pair is device-
-    eligible (size, f32 window, bf16-exact matrix, Pallas available);
-    every SW end-cell sweep and every Myers-Miller divide LEVEL then
-    runs as one dispatch windowing into these planes (VERDICT r3
-    next-round #1 — round 3 re-packed and re-uploaded host arrays per
-    level plan group and fetched full row streams).
-    """
-    if not _device_ok(len(q), len(s), sub, Q, R):
-        return None
-    from ..ops.mm_device import DevicePair
-
-    return DevicePair(q, s, _pad32(sub), Q, R, interpret=DEVICE_INTERPRET)
 
 
 def _ops_small(q, s, cost, g, h, tb, te):
@@ -283,7 +231,7 @@ def _ops_leaf(q, s, cost, g, h, tb, te):
     Identical outputs by construction (same recurrences, tie-breaks, and
     boundary contract — differential-tested); the native path exists
     because the NumPy fill's per-row interpreter overhead dominated the
-    huge-pair warm traceback (experiments/r4_mm_profile.py).
+    huge-pair warm traceback (host profile).
     """
     from .leafnative import leaf_ops_native
 
@@ -304,19 +252,13 @@ class _Node:
         self.tb, self.te = tb, te
 
 
-def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0):
+def _nw_ops(q, s, cost, g, h, tb, te):
     """Myers-Miller -> ops list 'M'/'D'/'I' (D: query residue to gap,
     I: subject residue to gap).
 
-    Breadth-first frontier instead of depth-first recursion: ALL divide
-    passes of one level run as ONE device dispatch
-    (``DevicePair.divide_level`` — forward+reverse rows, t1/t2 combine,
-    and argmin on device; the fetch is 4 scalars per node), and
-    subproblems at or below LEAF_CELLS solve directly with the
-    direction-matrix fill. ``q0``/``s0``: this rectangle's offset in the
-    full pair (``dev`` windows are absolute). Levels below
-    DEVICE_MIN_CELLS run the host NumPy passes instead — cheaper than a
-    round trip.
+    Breadth-first frontier instead of depth-first recursion: every level's
+    divide passes run as host NumPy row passes, and subproblems at or
+    below LEAF_CELLS solve directly with the direction-matrix fill.
     """
     items = [_Node(0, len(q), 0, len(s), tb, te)]
     while True:
@@ -341,35 +283,23 @@ def _nw_ops(q, s, cost, g, h, tb, te, dev=None, q0=0, s0=0):
             else:
                 requests.append((i, nd))
         if requests:
-            splits = None
-            if dev is not None and sum(
-                (nd.qe - nd.qs) * (nd.se - nd.ss) for _, nd in requests
-            ) >= DEVICE_MIN_CELLS:
-                splits = dev.divide_level(
-                    [
-                        (q0 + nd.qs, q0 + nd.qe, s0 + nd.ss, s0 + nd.se,
-                         nd.tb == 0, nd.te == 0)
-                        for _, nd in requests
-                    ]
+            splits = []
+            for _, nd in requests:
+                mid = (nd.qe - nd.qs) // 2
+                CCf, DDf = _mm_pass(
+                    q[nd.qs : nd.qs + mid], s[nd.ss : nd.se],
+                    cost, g, h, nd.tb,
                 )
-            if splits is None:
-                splits = []
-                for _, nd in requests:
-                    mid = (nd.qe - nd.qs) // 2
-                    CCf, DDf = _mm_pass(
-                        q[nd.qs : nd.qs + mid], s[nd.ss : nd.se],
-                        cost, g, h, nd.tb,
-                    )
-                    CCr, DDr = _mm_pass(
-                        _rev(q[nd.qs + mid : nd.qe]),
-                        _rev(s[nd.ss : nd.se]), cost, g, h, nd.te,
-                    )
-                    CCr, DDr = _rev(CCr), _rev(DDr)
-                    t1 = CCf + CCr  # crossing at (mid, j), match/insert
-                    t2 = DDf + DDr - g  # crossing inside a vertical gap
-                    j1 = int(np.argmin(t1))
-                    j2 = int(np.argmin(t2))
-                    splits.append((j1, j2, int(t1[j1]), int(t2[j2])))
+                CCr, DDr = _mm_pass(
+                    _rev(q[nd.qs + mid : nd.qe]),
+                    _rev(s[nd.ss : nd.se]), cost, g, h, nd.te,
+                )
+                CCr, DDr = _rev(CCr), _rev(DDr)
+                t1 = CCf + CCr  # crossing at (mid, j), match/insert
+                t2 = DDf + DDr - g  # crossing inside a vertical gap
+                j1 = int(np.argmin(t1))
+                j2 = int(np.argmin(t2))
+                splits.append((j1, j2, int(t1[j1]), int(t2[j2])))
             for (i, nd), (j1, j2, v1, v2) in zip(requests, splits):
                 mid = (nd.qe - nd.qs) // 2
                 if v1 <= v2:
@@ -453,15 +383,8 @@ def align_pair_linear(
     gap_extend: int,
     local: bool = True,
     first_residue_opens: bool = True,
-    stats=None,
 ) -> Traceback:
-    """Optimal alignment in O(m+n) memory (same scores as the oracle).
-
-    ``stats`` (a ``SearchStats``, optional): the device Myers-Miller
-    path's round trips are folded into ``stats.aligner_dispatches`` —
-    without it a huge-pair traceback's device work is invisible to the
-    caller's accounting (VERDICT r4 weak #2).
-    """
+    """Optimal alignment in O(m+n) memory (same scores as the oracle)."""
     Q, R = gap_qr(gap_open, gap_extend, first_residue_opens)
     q = np.asarray(q, dtype=np.intp)
     s = np.asarray(s, dtype=np.intp)
@@ -474,40 +397,19 @@ def align_pair_linear(
         return Traceback(score, 0, m, 0, n, "D" * m + "I" * n)
     g, h = Q - R, R
     cost = -sub.astype(np.int64)
-    dev = _make_device_pair(q, s, sub, Q, R)
-    if dev is not None:
+    if m * n > LEAF_CELLS:
         _warn_if_no_native_leaf()
-
-    try:
-        if local:
-            if dev is not None:
-                score, ei, ej = dev.sw_end(0, m, 0, n)
-            else:
-                score, ei, ej = _score_end_sw(q, s, sub, Q, R)
-            if score == 0:
-                return Traceback(0, 0, 0, 0, 0, "")
-            # Reverse pass over the prefix rectangle finds the start cell
-            # (a window into the REVERSED planes: rev(q[:ei]) = rev-q rows
-            # [m-ei, m), same for the subject).
-            if dev is not None:
-                _, ri, rj = dev.sw_end(m - ei, ei, n - ej, ej, reverse=True)
-            else:
-                _, ri, rj = _score_end_sw(
-                    _rev(q[:ei]), _rev(s[:ej]), sub, Q, R
-                )
-            si, sj = ei - ri, ej - rj  # 0-based start
-            ops = _nw_ops(
-                q[si:ei], s[sj:ej], cost, g, h, g, g, dev=dev, q0=si, s0=sj
-            )
-            return Traceback(score, si, ei, sj, ej, "".join(ops))
-        ops = _nw_ops(q, s, cost, g, h, g, g, dev=dev)
-        # The optimal score is the optimal path's score: evaluate the ops
-        # in O(m+n) instead of re-running a whole O(m*n) forward pass
-        # (which was +33-50% wall time on every huge-pair global
-        # alignment) just to read CC[n].
-        return Traceback(
-            _ops_score(q, s, sub, Q, R, ops), 0, m, 0, n, "".join(ops)
-        )
-    finally:
-        if stats is not None and dev is not None:
-            stats.aligner_dispatches += dev.dispatches
+    if local:
+        score, ei, ej = _score_end_sw(q, s, sub, Q, R)
+        if score == 0:
+            return Traceback(0, 0, 0, 0, 0, "")
+        # Reverse pass over the prefix rectangle finds the start cell.
+        _, ri, rj = _score_end_sw(_rev(q[:ei]), _rev(s[:ej]), sub, Q, R)
+        si, sj = ei - ri, ej - rj  # 0-based start
+        ops = _nw_ops(q[si:ei], s[sj:ej], cost, g, h, g, g)
+        return Traceback(score, si, ei, sj, ej, "".join(ops))
+    ops = _nw_ops(q, s, cost, g, h, g, g)
+    # The optimal score is the optimal path's score: evaluate the ops in
+    # O(m+n) instead of re-running a whole O(m*n) forward pass just to
+    # read CC[n].
+    return Traceback(_ops_score(q, s, sub, Q, R, ops), 0, m, 0, n, "".join(ops))

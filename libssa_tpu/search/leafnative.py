@@ -4,7 +4,7 @@
 traceback at C speed — the Python fill (``hirschberg._ops_small``) pays
 ~60 us of interpreter overhead per DP row, and the leaf row total equals
 the query length regardless of leaf sizing, so it dominated the warm
-30k x 30k NW traceback (2.0 of 2.7 s; experiments/r4_mm_profile.py).
+30k x 30k NW traceback (2.0 of 2.7 s in a host profile).
 The Python fill remains the fallback and the differential oracle; this
 path is a throughput optimization, never a correctness dependency
 (identical recurrences, tie-breaks, and (tb, te) boundary contract —

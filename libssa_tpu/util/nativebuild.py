@@ -1,27 +1,29 @@
 """Lazy build of the native helper libraries (fastadb, leafalign).
 
 The native components are throughput optimizations with pure-Python
-fallbacks, which makes their ABSENCE silent — and expensive: a checkout
-without ``native/libleafalign.so`` ran the 100k x 100k traceback demo
-~10x slower through the Python leaf fill before anyone noticed (round 5;
-the .so is a build artifact, so a fresh clone never has it). Shipping
-prebuilt binaries in git is worse: they are compiled ``-march=native``
-for ONE host's CPU and can SIGILL on the next (the same cross-host
-hazard that poisoned the XLA:CPU compilation cache — util/jaxcache.py).
+fallbacks, which makes their ABSENCE silent — and expensive: without
+``native/libleafalign.so`` a 100k x 100k traceback runs ~10x slower through
+the Python leaf fill. The .so files are build artifacts (never in git), so
+the bridges self-build: when a library is missing or stale and the repo's
+``native/`` sources plus a C++ compiler are available, build it once,
+under a file lock (the multi-process tests spawn concurrent importers).
+Failure is silent by design — the Python fallbacks remain correct, and
+hirschberg warns on the expensive path. Opt out with
+``LIBSSA_NO_NATIVE_BUILD=1``.
 
-So the bridges self-build: when a library is missing (or older than its
-source) and the repo's ``native/`` sources plus a C++ compiler are
-available, build it once, under a file lock (the multi-process tests
-spawn concurrent importers). Failure is silent by design — the Python
-fallbacks remain correct, and hirschberg warns on the expensive path.
-Opt out with ``LIBSSA_NO_NATIVE_BUILD=1``.
+A library is fresh only if it is newer than its source AND a stamp beside
+it names this host's machine, compiler and flags: a library copied with a
+checkout onto another host is rebuilt there instead of being loaded. The
+flags are portable (no ``-march=native``), so even a stale copy cannot hit
+an illegal instruction.
 """
 from __future__ import annotations
 
 import os
+import platform
 import subprocess
 
-_CXXFLAGS = ["-O3", "-march=native", "-std=c++17", "-fPIC", "-shared"]
+_CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 
 def _source_dir() -> str | None:
@@ -31,8 +33,22 @@ def _source_dir() -> str | None:
     return cand if os.path.isdir(cand) else None
 
 
-def _fresh(out: str, src: str) -> bool:
-    return os.path.isfile(out) and os.path.getmtime(out) >= os.path.getmtime(src)
+def _host_stamp(cxx: str) -> str:
+    return " ".join(
+        [platform.node(), platform.machine(), cxx, *_CXXFLAGS]
+    )
+
+
+def _fresh(out: str, src: str, stamp: str) -> bool:
+    if not (
+        os.path.isfile(out) and os.path.getmtime(out) >= os.path.getmtime(src)
+    ):
+        return False
+    try:
+        with open(out + ".stamp") as f:
+            return f.read() == stamp
+    except OSError:
+        return False
 
 
 def ensure_built(so_name: str, source_name: str) -> str | None:
@@ -45,23 +61,20 @@ def ensure_built(so_name: str, source_name: str) -> str | None:
     src = os.path.join(src_dir, source_name)
     if not os.path.isfile(src):
         return None
-    out_dir = src_dir
-    if not os.access(out_dir, os.W_OK):
-        out_dir = os.path.join(
-            os.path.expanduser("~"), ".cache", "libssa_tpu", "native"
-        )
-    out = os.path.join(out_dir, so_name)
-    if _fresh(out, src):
+    out = os.path.join(src_dir, so_name)
+    cxx = os.environ.get("CXX", "g++")
+    stamp = _host_stamp(cxx)
+    if _fresh(out, src, stamp):
         return out
+    if not os.access(src_dir, os.W_OK):
+        return None
+    tmp = f"{out}.tmp.{os.getpid()}"
     try:
         import fcntl
 
-        os.makedirs(out_dir, exist_ok=True)
         with open(out + ".lock", "w") as lf:
             fcntl.flock(lf, fcntl.LOCK_EX)
-            if not _fresh(out, src):  # a concurrent holder may have built
-                cxx = os.environ.get("CXX", "g++")
-                tmp = f"{out}.tmp.{os.getpid()}"
+            if not _fresh(out, src, stamp):  # a concurrent holder may have built
                 subprocess.run(
                     [cxx, *_CXXFLAGS, "-o", tmp, src],
                     check=True,
@@ -69,6 +82,11 @@ def ensure_built(so_name: str, source_name: str) -> str | None:
                     timeout=300,
                 )
                 os.replace(tmp, out)
+                with open(out + ".stamp", "w") as f:
+                    f.write(stamp)
     except Exception:
         return None
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out

@@ -1,6 +1,6 @@
 // Native FASTA parser + symbol packer for libssa_tpu.
 //
-// TPU-native counterpart of the reference's native database layer (libsdb +
+// Counterpart of the reference's native database layer (libsdb +
 // src/db_adapter.c per SURVEY.md §2): parse a FASTA database once, translate
 // ASCII to internal symbol codes through a caller-supplied 256-entry table,
 // and hand back flat packed arrays (codes / offsets / lengths / headers)

@@ -4,8 +4,8 @@ Launched (twice) by tests/test_multiproc.py with
 ``python multiproc_worker.py <process_id> <num_processes> <port>``.
 Each process owns 2 virtual CPU devices; ``jax.distributed.initialize``
 (gloo) joins them into one 4-device global mesh — the same program shape
-a real multi-host v5e job takes (VERDICT r2 missing #2: nothing
-distributed had ever executed across process boundaries).
+a real multi-host job takes (nothing distributed had executed across
+process boundaries before this test).
 
 Every assertion runs in BOTH processes: the sharded engine's results must
 be bit-identical to the per-process single-device engine on

@@ -5,8 +5,8 @@ where 32-bit arithmetic would suffice. Rounds 1-3 mapped BIT64 to the
 exact-int32 device pass with the int64 NumPy oracle out of band
 (PARITY.md documented the mapping); round 4 makes the lane real —
 ``manager._rungs`` terminates every escape ladder in a device int64
-pass, and ``BitWidth.BIT64`` runs that pass directly. XLA legalizes
-s64 on TPU via 32-bit-pair emulation (experiments/r4_int64_probe.py).
+pass, and ``BitWidth.BIT64`` runs that pass directly (the scan kernel
+in s64).
 
 The beyond-int32 tests are the lane's raison d'être: with a
 ``match=2**28`` constant-scoring matrix, a 20-residue self-hit scores

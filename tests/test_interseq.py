@@ -1,7 +1,7 @@
 """Inter-sequence kernel vs scalar oracle: bit-exactness lock.
 
-Replicates the reference's oracle pattern (SURVEY.md §4): the SIMD—here
-VPU—kernel must produce bit-identical scores to the 64-bit scalar path on
+Replicates the reference's oracle pattern (SURVEY.md §4): the vectorized
+kernel must produce bit-identical scores to the 64-bit scalar path on
 random batches, across SW/NW, gap parameter grids, ragged lengths, and both
 profile-gather strategies. Also locks the ladder overflow flags.
 """
@@ -198,7 +198,7 @@ def test_m_real_padded_profile(local):
 
 def test_pair_scores_batch_large_matrix_exact():
     """pair_scores_batch must not wrap large-entry matrices in the int8
-    MXU gather (review finding: the scan path passed use_matmul=True
+    one-hot dot gather (review finding: the scan path passed use_matmul=True
     unguarded, bypassing the engine's |score|<=127 gate)."""
     from libssa_tpu import matrices as M
     from libssa_tpu.constants import SymType

@@ -1,10 +1,9 @@
-"""Long-pair row-sweep scorer (ops/longpair.py + longpair_pallas.py).
+"""Long-pair row-sweep scorer (ops/longpair.py).
 
-The single-enormous-pair path (VERDICT r2 missing #3): the XLA scan is
-the correctness anchor / CPU fallback; the Pallas kernel runs the same
-recurrence VMEM-resident (tested here in interpret mode; the TPU lane in
-test_tpu_hw.py covers compiled execution). Both must be bit-exact vs the
-int64 oracle for SW and NW under both gap conventions.
+The single-enormous-pair path (``align_pair`` SCORE mode) must be
+bit-exact vs the int64 oracle for SW and NW under both gap conventions,
+across alphabets, pair shapes and the f32/int32 arithmetic split. The
+card runs the same scan in tests/test_gpu.py.
 """
 import numpy as np
 import pytest
@@ -29,9 +28,7 @@ def test_scan_matches_oracle(go, ge, local):
         want = (oracle.sw_score if local else oracle.nw_score)(
             q, s, B62.scores, go, ge
         )
-        got = longpair_score(
-            q, s, B62.padded(), go, ge, local=local, kernel="scan"
-        )
+        got = longpair_score(q, s, B62.padded(), go, ge, local=local)
         assert got == want, (m, n)
 
 
@@ -43,7 +40,7 @@ def test_gap_convention_knob():
         want = oracle.sw_score(q, s, B62.scores, 10, 1, fro)
         got = longpair_score(
             q, s, B62.padded(), 10, 1, local=True,
-            first_residue_opens=fro, kernel="scan",
+            first_residue_opens=fro,
         )
         assert got == want
 
@@ -51,8 +48,8 @@ def test_gap_convention_knob():
 def test_empty_inputs():
     q = np.zeros(0, np.uint8)
     s = np.arange(5, dtype=np.uint8) % 4
-    assert longpair_score(q, s, B62.padded(), 10, 1, True, kernel="scan") == 0
-    nw = longpair_score(q, s, B62.padded(), 10, 1, False, kernel="scan")
+    assert longpair_score(q, s, B62.padded(), 10, 1, True) == 0
+    nw = longpair_score(q, s, B62.padded(), 10, 1, False)
     assert nw == -(11 + 4 * 1)  # Q + (n-1) R
 
 
@@ -98,187 +95,107 @@ def test_score_bound_ignores_pad_fill():
     assert score_bound(100, 100, cm.scores, 5, 1) == 100 * 1 + 5 + 100 * 1
 
 
-@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
-def test_pallas_interpret_matches_oracle(local):
-    """The Pallas kernel (interpret mode on CPU) is bit-exact, including
-    the cross-span combine (pairs >> one 128-lane span)."""
-    from libssa_tpu.ops.longpair_pallas import longpair_score_pallas
+def _pair_check(q, s, local, go=10, ge=1, matrix=B62):
+    want = (oracle.sw_score if local else oracle.nw_score)(
+        q, s, matrix.scores, go, ge
+    )
+    assert longpair_score(q, s, matrix.padded(), go, ge, local=local) == want
 
+
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+def test_cross_span_pairs(local):
+    """Pairs far wider than one 512-column pad block and of every
+    height/width ratio, across gap penalties."""
     rng = np.random.default_rng(31 + local)
     for m, n, go, ge in [(40, 60, 10, 1), (9, 300, 5, 2), (130, 1100, 20, 1)]:
         q = rng.integers(0, 20, m).astype(np.uint8)
         s = rng.integers(0, 20, n).astype(np.uint8)
-        Q, R = oracle.gap_qr(go, ge)
-        want = (oracle.sw_score if local else oracle.nw_score)(
-            q, s, B62.scores, go, ge
-        )
-        got = longpair_score_pallas(
-            q, s, B62.padded(), Q, R, local=local, interpret=True
-        )
-        assert got == want, (m, n, go, ge)
+        _pair_check(q, s, local, go, ge)
 
 
-def test_pallas_interpret_multiblock():
-    """Query longer than one row block exercises grid streaming."""
-    from libssa_tpu.ops.longpair_pallas import longpair_score_pallas
-
+def test_multiblock_query():
+    """A query spanning several 256-row pad blocks."""
     rng = np.random.default_rng(77)
     q = rng.integers(0, 20, 600).astype(np.uint8)
     s = rng.integers(0, 20, 500).astype(np.uint8)
-    want = oracle.sw_score(q, s, B62.scores, 10, 1)
-    got = longpair_score_pallas(q, s, B62.padded(), 11, 1, local=True,
-                                interpret=True)
-    assert got == want
+    _pair_check(q, s, True)
 
 
-def test_alphabet_planes_rungs():
-    """Select-tree plane count per observed code range (r3: the tree is
-    the dominant per-step cost, K-1 selects — PERF_NOTES r3)."""
-    from libssa_tpu.ops.longpair_pallas import alphabet_planes
-
-    a = np.array
-    assert alphabet_planes(a([0, 3]), a([1])) == 5  # plain ACGT
-    assert alphabet_planes(a([0, 14]), a([2])) == 16  # IUPAC nt
-    assert alphabet_planes(a([0, 19]), a([7])) == 21  # standard 20 aa (r5)
-    assert alphabet_planes(a([0, 23]), a([5])) == 25  # NCBI aa incl. rare
-    assert alphabet_planes(a([0, 24])) == 32  # defensive: full planes
-    assert alphabet_planes(a([], dtype=np.int64)) == 5  # empty -> min
-    # Query and subject ranges combine.
-    assert alphabet_planes(a([2]), a([20])) == 25
-
-
-def test_band_height_rule():
-    """CH lookup pins the measured-best cells (PERF_NOTES r3 + r5: the
-    packed select tree moved every large protein size to CH32)."""
-    from libssa_tpu.ops.longpair_pallas import band_height, tree_impl
-
-    assert band_height(5, 4000) == 8  # small queries stay at CH8
-    assert band_height(5, 16384) == 16
-    assert band_height(5, 32768) == 32
-    assert band_height(16, 16384) == 16
-    assert band_height(21, 16384) == 32
-    assert band_height(25, 16384) == 32
-    assert band_height(25, 32768) == 32
-    # Tree layout policy: packed8 needs whole-vreg words (CH >= 32) and
-    # a select-bound tree (K >= 21); everything else keeps bf16.
-    assert tree_impl(21, 32) == "packed8"
-    assert tree_impl(25, 32) == "packed8"
-    assert tree_impl(25, 16) == "bf16"  # CH16: Mosaic relayout storm
-    assert tree_impl(25, 8) == "bf16"
-    assert tree_impl(16, 32) == "bf16"  # small trees: unpack not paid
-    assert tree_impl(5, 32) == "bf16"
-
-
-@pytest.mark.parametrize("ch", [16, 32])
+@pytest.mark.parametrize("m,n", [(40, 60), (300, 700)])
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
-def test_taller_bands_exact(ch, local):
-    """CH=16/32 band heights are bit-exact (incl. the NW capture row and
-    column-0 boundary at the taller band geometry)."""
-    from libssa_tpu.ops.longpair_pallas import longpair_score_pallas
-
-    rng = np.random.default_rng(ch + local)
-    for m, n in [(40, 60), (300, 700)]:
-        q = rng.integers(0, 20, m).astype(np.uint8)
-        s = rng.integers(0, 20, n).astype(np.uint8)
-        want = (oracle.sw_score if local else oracle.nw_score)(
-            q, s, B62.scores, 10, 1
-        )
-        got = longpair_score_pallas(
-            q, s, B62.padded(), 11, 1, local=local, interpret=True, ch=ch
-        )
-        assert got == want, (m, n, ch, local)
+def test_taller_pairs_exact(m, n, local):
+    """Short and tall pairs, including the NW capture at the last row
+    and column."""
+    rng = np.random.default_rng(m + n + local)
+    q = rng.integers(0, 20, m).astype(np.uint8)
+    s = rng.integers(0, 20, n).astype(np.uint8)
+    _pair_check(q, s, local)
 
 
-@pytest.mark.parametrize("hi,K", [(4, 5), (15, 16), (20, 21), (24, 25)])
+@pytest.mark.parametrize("hi", [4, 15, 20, 24])
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
-def test_alphabet_sized_tree_exact(hi, K, local):
-    """Every K rung is bit-exact, including the unbalanced-tree odd-tail
-    region (codes 16..23 at K=25; code 4 at K=5) and PAD remapped to
-    K-1 (pad columns/rows must still decay, not score)."""
-    from libssa_tpu.ops.longpair_pallas import (
-        alphabet_planes,
-        longpair_score_pallas,
-    )
-
+def test_alphabet_sizes_exact(hi, local):
+    """Nucleotide (4, 15) and protein (20, 24) code ranges, with the top
+    code present, are exact; PAD columns and rows only decay."""
     rng = np.random.default_rng(hi * 10 + local)
     for m, n in [(50, 70), (200, 450)]:
         q = rng.integers(0, hi, m).astype(np.uint8)
         s = rng.integers(0, hi, n).astype(np.uint8)
-        # Force the rung's top code to appear (it decides K and sits on
-        # the tree's odd tail).
         q[0] = s[0] = hi - 1
-        assert alphabet_planes(q, s) == K
-        want = (oracle.sw_score if local else oracle.nw_score)(
-            q, s, B62.scores, 10, 1
-        )
-        got = longpair_score_pallas(
-            q, s, B62.padded(), 11, 1, local=local, interpret=True
-        )
-        assert got == want, (m, n, hi, local)
+        _pair_check(q, s, local)
 
 
-@pytest.mark.parametrize("tree", ["bf16", "packed8"])
-@pytest.mark.parametrize("ch", [8, 16, 32])
+@pytest.mark.parametrize("m,n", [(45, 65), (260, 520), (130, 1100)])
+@pytest.mark.parametrize("gaps", [(10, 1), (5, 2)])
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
-def test_select_tree_impls_exact(tree, ch, local):
-    """Both select-tree data layouts are bit-exact at every band height
-    (r5: packed8 carries four int8 rows per int32 word and rebuilds the
-    f32 column with a shift-pair sign-extend — exercising negative
-    scores in every byte position)."""
-    from libssa_tpu.ops.longpair_pallas import longpair_score_pallas
-
-    rng = np.random.default_rng(ch * 3 + local + len(tree))
-    for m, n in [(45, 65), (260, 520)]:
-        q = rng.integers(0, 20, m).astype(np.uint8)
-        s = rng.integers(0, 20, n).astype(np.uint8)
-        want = (oracle.sw_score if local else oracle.nw_score)(
-            q, s, B62.scores, 10, 1
-        )
-        got = longpair_score_pallas(
-            q, s, B62.padded(), 11, 1, local=local, interpret=True, ch=ch,
-            tree=tree,
-        )
-        assert got == want, (m, n, ch, local, tree)
+def test_size_gap_grid_exact(m, n, gaps, local):
+    rng = np.random.default_rng(m * 3 + n + local + gaps[0])
+    q = rng.integers(0, 20, m).astype(np.uint8)
+    s = rng.integers(0, 20, n).astype(np.uint8)
+    _pair_check(q, s, local, *gaps)
 
 
-def test_pack_planes_roundtrip():
-    """pack_planes byte layout: byte j of word w == row w + W*j, two's
-    complement, recoverable by the kernel's shift-pair unpack."""
-    from libssa_tpu.ops.longpair_pallas import pack_planes
-
-    rng = np.random.default_rng(9)
-    K, CH, B = 5, 16, 128
-    pq = rng.integers(-64, 12, (K, CH, B)).astype(np.int64)
-    word = pack_planes(pq)
-    assert word.shape == (K, CH // 4, B) and word.dtype == np.int32
-    W = CH // 4
-    for j in range(4):
-        g = (word >> (8 * j)) if j == 3 else (
-            ((word << (24 - 8 * j)).astype(np.int32)) >> 24
-        )
-        np.testing.assert_array_equal(g, pq[:, W * j : W * (j + 1)])
-    with pytest.raises(ValueError):
-        pack_planes(np.full((2, 8, 128), 200, np.int64))
-
-
-def test_packed_tree_auto_fallback_large_scores():
-    """Auto tree selection falls back to bf16 when |score| > 127 (the
-    Pallas paths admit up to 256); an explicit packed8 request raises."""
-    from libssa_tpu.ops.longpair_pallas import longpair_score_pallas
-
+def test_large_entry_matrix_exact():
+    """Substitution entries far beyond int8 (200) stay exact."""
     scores = np.full((32, 32), -64, np.int64)
-    A = 25  # protein-sized alphabet so auto picks packed8
+    A = 25
     scores[:A, :A] = -3
-    np.fill_diagonal(scores[:A, :A], 200)  # > 127, <= 256
+    np.fill_diagonal(scores[:A, :A], 200)
     rng = np.random.default_rng(4)
     q = rng.integers(0, 25, 40).astype(np.uint8)
     s = rng.integers(0, 25, 55).astype(np.uint8)
     want = oracle.sw_score(q, s, scores[:A, :A], 11, 1)
-    got = longpair_score_pallas(
-        q, s, scores, 12, 1, local=True, interpret=True
-    )
-    assert got == want
-    with pytest.raises(ValueError):
-        longpair_score_pallas(
-            q, s, scores, 12, 1, local=True, interpret=True, tree="packed8"
-        )
+    assert longpair_score(q, s, scores, 11, 1, local=True) == want
+
+
+def test_subject_profile_layout():
+    """P[a, j] = sub(a, s[j]): one row per alphabet symbol."""
+    rng = np.random.default_rng(2)
+    s = rng.integers(0, 20, 33).astype(np.uint8)
+    P = subject_profile(s, B62.padded())
+    assert P.shape == (32, 33)
+    np.testing.assert_array_equal(P[:, 5], B62.padded()[:, s[5]])
+
+
+def test_real_max_abs_strips_pad_fill():
+    from libssa_tpu.ops.longpair import real_max_abs
+
+    assert real_max_abs(B62.scores) == (int(np.abs(B62.scores).max()), False)
+    mx, padded = real_max_abs(B62.padded())
+    assert padded and mx == int(np.abs(B62.scores).max())
+    cm = matrices.constant_scoring(7, -2, B62.symtype)
+    assert real_max_abs(cm.scores) == (7, False)
+
+
+def test_f32_window_routes_int32_scan():
+    """A pair whose bound leaves the f32 window runs the int32 scan and
+    stays exact."""
+    from libssa_tpu.constants import SymType
+
+    big = matrices.constant_scoring(2**20, -3, SymType.NUCLEOTIDE)
+    rng = np.random.default_rng(12)
+    q = rng.integers(0, 4, 60).astype(np.uint8)
+    s = np.concatenate([q[5:55], rng.integers(0, 4, 30).astype(np.uint8)])
+    assert score_bound(60, 80, big.padded(), 12, 2) >= 2**24
+    for local in (True, False):
+        _pair_check(q, s, local, 10, 2, big)

@@ -53,7 +53,7 @@ def test_padded_table():
     np.testing.assert_array_equal(p[: m.alphabet_size, : m.alphabet_size], m.scores)
     assert (p[m.alphabet_size :, :] == -64).all()
     assert (p[:, m.alphabet_size :] == -64).all()
-    assert -128 <= p.min() and p.max() <= 127  # int8-representable for MXU path
+    assert -128 <= p.min() and p.max() <= 127  # int8-representable for the one-hot dot
 
 
 def test_unknown_builtin_raises():

@@ -2,7 +2,7 @@
 
 Launches two OS processes, each owning 2 virtual CPU devices, joined by
 ``jax.distributed.initialize`` (gloo) into one 4-device global mesh —
-the program structure a real multi-host v5e-16 job takes. Each worker
+the program structure a real multi-host job takes. Each worker
 asserts the sharded engine's ``search`` / ``search_many`` /
 ``search_reduced`` hit lists are bit-identical to a single-device
 engine (tests/multiproc_worker.py).

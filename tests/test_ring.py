@@ -76,79 +76,81 @@ def test_ring_profile_multiple_validation(mesh):
         ring_pair_score(prof, subj, 12, 1, mesh=mesh, RB=32)
 
 
+def _ring_check(q, s, local, n_devices, go=11, ge=1, RB=32, matrix=B62):
+    got = ring_score(
+        q, s, matrix.padded(), go, ge, local=local,
+        mesh=make_db_mesh(n_devices), RB=RB,
+    )
+    want = (oracle.sw_score if local else oracle.nw_score)(
+        q, s, matrix.scores, go, ge
+    )
+    assert got == want, (len(q), len(s), n_devices, local)
+
+
+@pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
+@pytest.mark.parametrize(
+    "m,n,D",
+    [
+        (40, 60, 1),  # single tile, padded
+        (300, 200, 2),  # several row blocks, wide shards
+        (200, 300, 4),
+        (530, 610, 8),  # ragged ends on every device
+        (256, 256, 2),  # exact fit
+        (257, 513, 4),  # off-by-one over the tile edges
+    ],
+)
+def test_ring_tile_shapes(local, m, n, D):
+    """Tile-edge shapes through the scan-tile ring on 1/2/4/8 devices."""
+    rng = np.random.default_rng(m * 1000 + n + (1 if local else 0))
+    q = rng.integers(0, 20, m).astype(np.uint8)
+    s = rng.integers(0, 20, n).astype(np.uint8)
+    _ring_check(q, s, local, D, go=10, RB=64)
+
+
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
 @pytest.mark.parametrize("m,n", [(64, 300), (100, 777), (40, 40)])
-def test_banded_ring_matches_oracle(mesh, local, m, n):
-    """Round 3: the per-device Pallas tile-kernel ring (interpret mode)."""
+def test_ring_shapes_four_devices(local, m, n):
     rng = np.random.default_rng(m * 77 + n + (1 if local else 0))
     q = rng.integers(0, 20, m).astype(np.uint8)
     s = rng.integers(0, 20, n).astype(np.uint8)
-    got = ring_score(
-        q, s, B62.padded(), 11, 1, local=local, mesh=mesh, RB=32,
-        kernel="banded", interpret=True,
-    )
-    want = (oracle.sw_score if local else oracle.nw_score)(
-        q, s, B62.scores, 11, 1
-    )
-    assert got == want
+    _ring_check(q, s, local, 4)
 
 
 @pytest.mark.parametrize("local", [True, False], ids=["sw", "nw"])
-def test_banded_ring_taller_bands(mesh, local):
-    """CH=16 band geometry through the ring (production pick for
-    RB >= 8192; the wrapper gates interpret runs to CH8, so drive
-    ring_pair_score_banded directly with CH16 planes)."""
-    import jax.numpy as jnp
-    from jax.sharding import PartitionSpec as P
-
-    from libssa_tpu.ops.longpair_pallas import alphabet_planes
-    from libssa_tpu.ops.mm_device import _pq_blocks
-    from libssa_tpu.oracle import gap_qr
-    from libssa_tpu.parallel.ring import ring_pair_score_banded
-    from libssa_tpu.parallel.sharded import put_global
-
-    rng = np.random.default_rng(61 + local)
-    m, n, RB, CH = 100, 777, 64, 16
-    q = rng.integers(0, 20, m).astype(np.uint8)
-    s = rng.integers(0, 20, n).astype(np.uint8)
-    K = alphabet_planes(q, s)
-    Q, R = gap_qr(11, 1)
-    B = RB // CH
-    Rblocks = -(-m // RB)
-    pq = _pq_blocks(q, B62.padded(), Rblocks, RB, B, K, CH)
-    D = mesh.devices.size
-    W = -(-n // D)
-    s_pad = np.full((W * D,), K - 1, np.int64)
-    s_pad[:n] = s
-    subj = put_global(s_pad, mesh, P("d"), np.int32)
-    pq_j = put_global(pq, mesh, P(), np.float32)
-    got = int(
-        ring_pair_score_banded(
-            jnp.asarray(pq_j).astype(jnp.bfloat16), subj,
-            gap_q=int(Q), gap_r=int(R), mesh=mesh, RB=RB, local=local,
-            m_real=m, n_real=n, interpret=True,
-        )
-    )
-    want = (oracle.sw_score if local else oracle.nw_score)(
-        q, s, B62.scores, 11, 1
-    )
-    assert got == want
+def test_ring_randomized(local):
+    rng = np.random.default_rng(7 if local else 8)
+    for _ in range(3):
+        q = rng.integers(0, 20, int(rng.integers(2, 300))).astype(np.uint8)
+        s = rng.integers(0, 20, int(rng.integers(2, 300))).astype(np.uint8)
+        _ring_check(q, s, local, 2, go=10, RB=64)
 
 
-def test_banded_ring_matches_scan_ring(mesh):
-    """Both ring formulations agree pairwise (and with the oracle)."""
-    rng = np.random.default_rng(123)
-    q = rng.integers(0, 20, 96).astype(np.uint8)
-    s = rng.integers(0, 20, 555).astype(np.uint8)
-    scan = ring_score(
-        q, s, B62.padded(), 12, 2, local=True, mesh=mesh, RB=32,
-        kernel="scan",
-    )
-    banded = ring_score(
-        q, s, B62.padded(), 12, 2, local=True, mesh=mesh, RB=32,
-        kernel="banded", interpret=True,
-    )
-    assert scan == banded == oracle.sw_score(q, s, B62.scores, 12, 2)
+@pytest.mark.parametrize("hi", [4, 15])
+def test_ring_nucleotide_codes(hi):
+    """Nucleotide-range codes with the top code present, both modes."""
+    rng = np.random.default_rng(hi)
+    q = rng.integers(0, hi, 230).astype(np.uint8)
+    s = rng.integers(0, hi, 410).astype(np.uint8)
+    q[0] = s[0] = hi - 1
+    for local in (True, False):
+        _ring_check(q, s, local, 4, go=10, RB=64)
+
+
+@pytest.mark.parametrize("RB", [16, 64, 128])
+def test_ring_row_block_heights(RB):
+    """Row-block height is a schedule knob only: every height is exact."""
+    rng = np.random.default_rng(RB)
+    q = rng.integers(0, 20, 200).astype(np.uint8)
+    s = rng.integers(0, 20, 300).astype(np.uint8)
+    for local in (True, False):
+        _ring_check(q, s, local, 2, go=10, RB=RB)
+
+
+def test_ring_gap_only_and_identical():
+    """Degenerate pairs crossing shard boundaries."""
+    q = np.tile(np.arange(20, dtype=np.uint8), 30)[:300]
+    for local in (True, False):
+        _ring_check(q, q, local, 4, go=10, RB=64)
 
 
 def test_ring_f32_window_escape(capsys):
